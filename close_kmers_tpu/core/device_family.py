@@ -59,8 +59,9 @@ class DeviceFamilyDB:
     d: int
 
     # famwide probe-row gate: the folded table costs H*(3+D)*W*4 bytes,
-    # which is H-dominated waste for small DBs — auto-on only at scale
-    FAMWIDE_MAX_BYTES = 3 << 30
+    # which is H-dominated waste for small DBs — auto-on only at scale,
+    # and only while the table fits this share of the device's memory
+    FAMWIDE_SHARE = 3 / 16
     FAMWIDE_MAX_D = 8
     FAMWIDE_MIN_KEYS = 1_000_000
 
@@ -95,21 +96,18 @@ class DeviceFamilyDB:
         """Folded family probe rows: [(fi<<13|lo) xW | wt-bits xW |
         fam_0 xW .. fam_{D-1} xW] per hi bucket, lane-padded to a
         multiple of 128 ints, so the FUSED family program needs ONE
-        gather total — no separate [N+1, D] family-row gather (which
-        costs the same per-row issue time as the probe itself, PERF.md
-        round-3 decomposition).  fi packs with lo exactly like the
-        fused_wide scale layout (engine.DeviceDB.FUSED_LO_BITS; needs
-        fi < 2^18), which keeps the row at (2+D)*W ints — 110 -> 128
-        lanes at the bench DB's D=3, W=22; a naive 3-plane variant
-        measured 132-int rows, whose off-128 width gathers in the
-        pathological tiling class (67 vs 42 ms/batch, devperf
-        fam_serve_fw round 3).  oi/avg_off are not carried: the family
+        gather total — no separate [N+1, D] family-row gather.  fi packs
+        with lo exactly like the fused_wide scale layout
+        (engine.DeviceDB.FUSED_LO_BITS; needs fi < 2^18), which keeps
+        the row at (2+D)*W ints — 110 -> 128 lanes at the bench DB's
+        D=3, W=22, where a 3-plane variant would need 132-int rows.
+        oi/avg_off are not carried: the family
         path never reads oi, and avg_off only under order_constraint
         (callers fall back to the two-gather path then).  Returns
         (jax.Array [H, row_w], W, D) or None when a gate trips
         (``force=True`` overrides the byte/scale gates for tests,
         ``force=False`` disables)."""
-        from .engine import DeviceDB as _DDB
+        from .engine import DeviceDB as _DDB, device_memory_bytes
         if force is False:
             return None
         n = len(db)
@@ -122,17 +120,17 @@ class DeviceFamilyDB:
         H = db.n_hi
         W = max(1, int(db.max_bucket))
         row_w = -(-((2 + D) * W) // 128) * 128
-        # Depth gate (r5): folding only makes sense at wide/fused-tier
-        # bucket depths — a PATRIC-density shard (max bucket 2219) with
-        # a small hi span passes the BYTE gate but its (2+D)*2219-int
+        # Depth gate: folding only makes sense at wide/fused-tier
+        # bucket depths — a PATRIC-density shard (max bucket ~2k) with
+        # a small hi span passes the BYTE gate but its (2+D)*2k-int
         # rows put every selection in the byte-bound gather class and
-        # the program OOMs HBM at serving batch sizes (caught by
-        # sub_serve_demo on the 971M shard after famwide went auto).
+        # the program runs out of device memory at serving batch sizes.
         from .engine import DeviceDB as _GateDDB
         if force is None and (D > cls.FAMWIDE_MAX_D
                               or W > _GateDDB.FUSED_BUCKET_MAX
                               or n < cls.FAMWIDE_MIN_KEYS
-                              or H * row_w * 4 > cls.FAMWIDE_MAX_BYTES):
+                              or H * row_w * 4 > cls.FAMWIDE_SHARE
+                              * device_memory_bytes(device)):
             return None
         tab = np.zeros((H, row_w), dtype=np.int32)
         tab[:, :W] = _DDB.FUSED_SENTINEL     # packed-plane sentinel
@@ -150,8 +148,8 @@ class DeviceFamilyDB:
 
 def _gather_fams(fam_tab, idx):
     """[B, W] matched-row ids -> [B, W, D] family rows, with the flat
-    gather count padded away from power-of-two-rich lengths (the v5e
-    gather cliff — see engine._probe_count_pad).  Pad indices hit the
+    gather count padded away from power-of-two-rich lengths (see
+    engine._probe_count_pad).  Pad indices hit the
     tab's final all-pad row, then are sliced off."""
     from .engine import _probe_count_pad
     B, W = idx.shape
@@ -185,10 +183,9 @@ def rollup_from_fams(fams, cap_seq: int, row_cap: int = 0):
 
     ``row_cap > 0`` (global mode only) compacts hierarchically: per-row
     to ``row_cap`` entries first, then a flat argsort over the B*row_cap
-    survivors instead of over all B*(W*D+1) emission flags — the flat
-    bitonic argsort at serving shapes (14.9M elements at B=16k) is the
-    single most expensive op in the fused family program, while the
-    row-local argsort is cheap (PERF.md sort measurements).  The packed
+    survivors instead of over all B*(W*D+1) emission flags (14.9M
+    elements at B=16k) — a row-local argsort is cheaper than the flat
+    one.  The packed
     output is bit-identical to the flat path whenever every row has
     <= row_cap groups; rows that overflow are detectable host-side
     (n_per_seq carries true counts — finish_rollup_global returns None
@@ -198,7 +195,7 @@ def rollup_from_fams(fams, cap_seq: int, row_cap: int = 0):
     # 1/degree recomputed from the gathered row (degree = non-pad count);
     # saves the second gather op.  Selected from host-computed IEEE f32
     # constants (a static chain over deg in 1..D) rather than a device
-    # divide — TPU f32 division is reciprocal-based and not guaranteed
+    # divide — a device f32 division may be reciprocal-based and not
     # correctly rounded, and these weights must match the host path's
     # np.float32(1.0/n) bit-for-bit.
     deg = (fams >= 0).sum(axis=-1)
@@ -258,14 +255,14 @@ def rollup_from_fams(fams, cap_seq: int, row_cap: int = 0):
         # grouped by sequence — n_per_seq delimits rows on the host.
         # D2H scales with the number of (sequence, family) groups, not
         # B * max-groups-per-row; this is what the fq/tiny-ORF regime
-        # needs, where the dense rows buffer dominates the wire.
+        # needs, where the dense rows buffer dominates the D2H copy.
         gcap = -cap_seq
         n_per_seq = emit.sum(axis=1, dtype=jnp.int32)
         # D2H slimming: when every (count, first-hit-position) pair fits
         # 15+16 bits — W*D+1 < 2^15, true for all protein-serving shapes
         # — fold them into ONE plane: the global pack ships 3 planes
         # instead of 4 (the rows pack is the largest family-path D2H
-        # buffer; the relay moves ~5-9 MB/s).  finish_rollup_global
+        # buffer).  finish_rollup_global
         # splits them back (folded=True).
         fold = (W * D + 1) < (1 << ROW_FIT_BITS)
         if row_cap > 0:
@@ -366,7 +363,7 @@ def _score_family_jit(bucket_pair, lo_arr, payload, n, n_steps, fam_tab,
     planes instead of 5): the best-match path feeds the pack only to the
     native best-call reduction, which never reads call positions
     (ckmers.cpp ck_best_call_batch; kguts.cc:1023-1139 uses counts and
-    weights only) — a 40% cut of the calls D2H on a wire-bound link."""
+    weights only) — a 40% cut of the calls D2H."""
     from .device_score import _scan_score
 
     hi, lo, valid = encode_windows(offsets, lengths)
@@ -456,12 +453,10 @@ class DeviceFamilyScorer:
                  famwide: bool | None = False):
         """``ddb``: share an existing DeviceDB (e.g. the serving
         engine's) instead of re-uploading the signature arrays.
-        ``famwide``: folded single-gather family rows — measured SLOWER
-        than the two-gather path on v5e at bench shapes (54.2 vs
-        42.2 ms/16384: the fam-row gather is narrow and cheap, while
-        folding doubles the probe row's gathered bytes — see PERF.md
-        round 3), so the default is OFF; True forces it on (parity
-        tests / future chips), None = auto byte/scale gate."""
+        ``famwide``: folded single-gather family rows — folding saves
+        the narrow fam-row gather but doubles the probe row's gathered
+        bytes, so the default is OFF; True forces it on (parity tests),
+        None = auto byte/scale gate."""
         self.db = db
         self.ddb = ddb if ddb is not None else DeviceDB.from_db(
             db, device=device)

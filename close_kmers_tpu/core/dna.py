@@ -8,7 +8,7 @@ long-contig tiling (the framework's sequence-parallel analogue).
 
 * :func:`probe_long_sequence` — the reference assumes one thread can scan
   an entire chromosome (MAX_SEQ_LEN=5e8, kmer_params.h:6, with per-thread
-  scratch that size, kguts.cc:62-65).  On TPU we tile: window position i
+  scratch that size, kguts.cc:62-65).  On the device we tile: window position i
   depends only on aa[i:i+8], so a long sequence splits into tiles with a
   K-1 overlap ("halo"); every window is probed in exactly one tile, and
   the *sequential* run/gap state machine consumes the concatenated hit

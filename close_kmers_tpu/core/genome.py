@@ -4,11 +4,11 @@ as ONE jitted program, downloading only the compacted CALL pack.
 
 The reference scans a whole chromosome on one thread against the mmap
 hash (KmerGuts::process_seq, /root/reference/kguts.cc:910-937, with
-MAX_SEQ_LEN=5e8 scratch buffers, kguts.cc:62-65).  The prior TPU path
-(core/dna.py probe_long_sequence) probed on device but downloaded every
-HIT for host scoring — at genome hit densities the hit D2H dominates the
-pass (PERF.md round-4: ~0.6 s of a 1.04 s / 5 Mbp pass).  This module
-keeps scoring on device so only calls (KBs, not MBs) cross the wire:
+MAX_SEQ_LEN=5e8 scratch buffers, kguts.cc:62-65).  core/dna.py
+probe_long_sequence probes on device but downloads every HIT for host
+scoring — at genome hit densities that download dominates the pass.
+This module keeps scoring on device so only calls (KBs, not MBs) are
+copied to the host:
 
 * **Translation on device**: the DNA uploads once as base digits
   (0-3 acgt, 4 ambiguous — ops.translate._DNA_CHAR semantics); the

@@ -5,10 +5,10 @@ The reference implements /matrix as a per-hit std::map walk: every
 gathered hit looks up the kmer's peg list and increments a
 ``map<pair<id,id>, int>`` for each co-registered matrix protein
 (/root/reference/matrix_request.cc:130-161), O(hits x degree x log P)
-with pointer-chasing on one thread.  The prior TPU bench path probed on
-device but did the CSR expansion and pair counting in host numpy — at
-P=2048 that host walk ran 9.6x SLOWER than the reference architecture
-on one core (BENCH round-5 start: 812 vs 7,804 proteins/s).
+with pointer-chasing on one thread.  The server's host walk
+(server/http.py handle_matrix) probes on device but does the CSR
+expansion and pair counting in host numpy, which was slower than the
+reference architecture on one core.
 
 This module keeps the whole thing on device:
 

@@ -58,7 +58,7 @@ class KmerFamilyMapping:
         self._kmer_to_pegs: dict[int, list[int]] = {}
         # Bulk kmer->family CSR from load_nr (keys i64 sorted unique,
         # offs i64, vals i32).  The dict above is the incremental /add
-        # delta on top of it; fam_csr() merges the two.  TPU-native
+        # delta on top of it; fam_csr() merges the two.  Array-native
         # replacement for the NRLoader/KmerInserter insert machinery
         # (nr_loader.cc:160-183): the NR scan yields flat (code, fam)
         # arrays which sort/group directly — no per-hit dict work.

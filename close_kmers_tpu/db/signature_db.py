@@ -3,7 +3,7 @@
 The reference stores the signature DB as an mmap'd open-addressed hash
 table of 24-byte ``sig_kmer_t`` entries (/root/reference/kmer_image.h:11-23,
 kmer_image.cc:41-107, probe kguts.cc:585-602).  Random linear-probe chains
-do not map to TPU; the TPU-native layout is:
+do not map to batched gathers; the layout here is:
 
 * ``lo``      int32[N]  — low LO_DIGITS-aa code of each kmer, sorted within bucket
 * ``fi``      int32[N]  — function index

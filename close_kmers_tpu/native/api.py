@@ -199,7 +199,7 @@ def matrix_hash(hp, pegmap, offsets, lengths):
 
 def pipeline_batch(db, offsets, lengths, min_hits=5, max_gap=200):
     """Single-core encode+probe+score over a padded uint8 batch, using the
-    same two-level index layout as the TPU kernel.  Returns per-seq call
+    same two-level index layout as the device probe.  Returns per-seq call
     counts.  This is the reference-architecture baseline for bench.py."""
     bucket_start = _i32(db.bucket_start)
     lo = _i32(db.lo)

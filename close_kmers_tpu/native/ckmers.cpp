@@ -10,7 +10,7 @@
 //   * family accumulation  — lookup_request.cc:446-469 (1/N weights over a
 //     kmer's distinct families, float32 adds in hit order)
 //   * probe                — kguts.cc:585-602 semantics on the sorted
-//     two-level index (same layout the TPU kernel uses)
+//     two-level index (same layout the device probe uses)
 //
 // The Python package loads this via ctypes (close_kmers_tpu/native/api.py).
 
@@ -340,7 +340,7 @@ int64_t ck_family_scores(const int64_t* codes,  // [total hits]
 // one-thread-per-request engine (threadpool.cc:18-45).
 // ---------------------------------------------------------------------------
 
-// two-level probe identical to the TPU kernel's semantics
+// two-level probe identical to the device probe's semantics
 static inline int64_t probe_one(const int32_t* bucket_start,
                                 const int32_t* lo_arr, int32_t hi, int32_t lo) {
     int32_t a = bucket_start[hi], b = bucket_start[hi + 1];

@@ -11,7 +11,7 @@ kguts.cc:273-339):
 * any window containing an invalid character encodes to the sentinel
   ``MAX_ENCODED + 1``.
 
-The TPU-native representation avoids 64-bit integers entirely: a code is
+The device representation avoids 64-bit integers entirely: a code is
 carried as the pair ``(hi, lo) = (code // 20**LO_DIGITS,
 code % 20**LO_DIGITS)`` (currently a 5/3 split: hi < 3.2M, lo < 8000),
 both int32-safe.  This drives the two-level sorted index in

@@ -1,20 +1,19 @@
-"""Pallas TPU kernel for the scoring state machine.
+"""The scoring state machine as one Pallas kernel for NVIDIA GPUs
+(Triton route).
 
-The run/gap/two-hit state machine (kguts.cc:734-877) is sequential per
-sequence but vectorizes across the batch.  The XLA `lax.scan` version
-(core/device_score._scan_score) dispatches hundreds of small fused
-kernels — one or more per window position.  This Pallas kernel runs the
-whole W-step loop inside a single kernel invocation: the per-sequence
-state lives in vector registers ([1, TB] lanes), each step consumes one
-row of the [W, TB]-transposed probe outputs with pure VPU selects, and
-call emissions are written row-by-row to VMEM outputs.
+The run/gap/two-hit state machine (kguts.cc:734-877) is sequential along
+a sequence's W window positions and independent across sequences.  The
+XLA version (core/device_score._scan_score_xla) is a ``lax.scan``, which
+XLA runs as a device-side loop of W dependent steps, each launching a few
+small kernels over the whole batch.  This kernel runs the whole W loop
+inside one launch instead: each program owns a tile of ``TB`` sequences,
+one thread per sequence, keeps the 13-field machine state in registers,
+reads column t of the ``[B, W]`` probe outputs at step t and writes
+column t of the call-emission planes.
 
-Grid: one program per TB-wide batch tile.  No gathers, no DMA games —
-exactly the access pattern the VPU likes (rows are lane-aligned).
-
-Semantics are identical to _scan_score (same masked-select formulation);
-parity is enforced by tests/test_pallas.py in interpret mode on CPU and
-by the device_score parity suite when a TPU is attached.
+Semantics are those of _scan_score_xla, step for step (same masked-select
+formulation, same f32 addition order); tests/test_pallas.py checks the
+two against each other in interpret mode on the CPU.
 """
 
 from __future__ import annotations
@@ -24,21 +23,24 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..params import K
 
-TB = 512  # batch-tile width (lanes); multiple of 128
+# Sequences per program and warps per program, chosen on an H100 at
+# B = 4096, W = 300 (sweep in PERF.md): 256 one-warp programs spread the
+# batch over all 132 SMs.
+TB = 16
+NUM_WARPS = 1
 
 
 def _scan_kernel(found_ref, fi_ref, av_ref, wt_ref,
                  emit_ref, cs_ref, ce_ref, cc_ref, cf_ref, cw_ref,
                  *, W, min_hits, min_weighted_hits, max_gap,
                  order_constraint):
-    f32 = jnp.float32
     i32 = jnp.int32
-    zero = jnp.zeros((1, TB), i32)
-    zf = jnp.zeros((1, TB), f32)
+    zero = jnp.zeros((TB,), i32)
+    zf = jnp.zeros((TB,), jnp.float32)
     minw = jnp.float32(min_weighted_hits)
 
     def flush_fields(s):
@@ -65,19 +67,19 @@ def _scan_kernel(found_ref, fi_ref, av_ref, wt_ref,
         )
 
     def write_call(t, emit, call):
-        emit_ref[t, :] = emit[0].astype(jnp.int32)
-        cs_ref[t, :] = call[0][0]
-        ce_ref[t, :] = call[1][0]
-        cc_ref[t, :] = call[2][0]
-        cf_ref[t, :] = call[3][0]
-        cw_ref[t, :] = call[4][0]
+        emit_ref[:, t] = emit.astype(jnp.int8)
+        cs_ref[:, t] = call[0]
+        ce_ref[:, t] = call[1]
+        cc_ref[:, t] = call[2]
+        cf_ref[:, t] = call[3]
+        cw_ref[:, t] = call[4]
 
     def step(t, s):
-        h = found_ref[t, :].reshape(1, TB) != 0
-        fi = fi_ref[t, :].reshape(1, TB)
-        av = av_ref[t, :].reshape(1, TB)
-        wt = wt_ref[t, :].reshape(1, TB)
-        posb = jnp.full((1, TB), t, i32)
+        h = found_ref[:, t] != 0
+        fi = fi_ref[:, t]
+        av = av_ref[:, t]
+        wt = wt_ref[:, t]
+        posb = jnp.full((TB,), t, i32)
 
         (num_hits, current, first_pos, prev_fi, prev_pos, prev_av, prev_wt,
          prev2_fi, prev2_pos, prev2_wt, cnt, wsum, last_match) = s
@@ -95,6 +97,7 @@ def _scan_kernel(found_ref, fi_ref, av_ref, wt_ref,
         cnt = jnp.where(gf_reset, 0, cnt)
         wsum = jnp.where(gf_reset, zf, wsum)
 
+        # current_fI seeding and admission (kguts.cc:833-842)
         was0 = num_hits == 0
         cur = jnp.where(h & was0, fi, current)
         if order_constraint:
@@ -104,32 +107,32 @@ def _scan_kernel(found_ref, fi_ref, av_ref, wt_ref,
         else:
             admit = h
 
+        # append (kguts.cc:844-851)
         match = fi == cur
-        nh1 = num_hits + 1
-        new_num = jnp.where(admit, nh1, num_hits)
-        new_first = jnp.where(admit & was0, posb, first_pos)
-        new_cnt = jnp.where(admit & match, cnt + 1, cnt)
-        new_wsum = jnp.where(admit & match, wsum + wt, wsum)
-        new_last = jnp.where(admit & match, posb, last_match)
-        n_prev2_fi = jnp.where(admit, prev_fi, prev2_fi)
-        n_prev2_pos = jnp.where(admit, prev_pos, prev2_pos)
-        n_prev2_wt = jnp.where(admit, prev_wt, prev2_wt)
-        n_prev_fi = jnp.where(admit, fi, prev_fi)
-        n_prev_pos = jnp.where(admit, posb, prev_pos)
-        n_prev_av = jnp.where(admit, av, prev_av)
-        n_prev_wt = jnp.where(admit, wt, prev_wt)
-        s = (new_num, cur, new_first, n_prev_fi, n_prev_pos, n_prev_av,
-             n_prev_wt, n_prev2_fi, n_prev2_pos, n_prev2_wt, new_cnt,
-             new_wsum, new_last)
+        new_num = jnp.where(admit, num_hits + 1, num_hits)
+        s = (new_num,
+             cur,
+             jnp.where(admit & was0, posb, first_pos),
+             jnp.where(admit, fi, prev_fi),
+             jnp.where(admit, posb, prev_pos),
+             jnp.where(admit, av, prev_av),
+             jnp.where(admit, wt, prev_wt),
+             jnp.where(admit, prev_fi, prev2_fi),
+             jnp.where(admit, prev_pos, prev2_pos),
+             jnp.where(admit, prev_wt, prev2_wt),
+             jnp.where(admit & match, cnt + 1, cnt),
+             jnp.where(admit & match, wsum + wt, wsum),
+             jnp.where(admit & match, posb, last_match))
 
-        tir = admit & (new_num > 1) & (cur != fi) & (n_prev2_fi == fi)
+        # two-in-a-row flush (kguts.cc:852-856)
+        tir = admit & (new_num > 1) & (cur != fi) & (s[7] == fi)
         emitB, callB = flush_fields(s)
         emitB = emitB & tir
         s = apply_flush(s, tir)
 
         emit = emitA | emitB
-        call = tuple(jnp.where(emitA, a, b) for a, b in zip(callA, callB))
-        write_call(t, emit, call)
+        write_call(t, emit, tuple(jnp.where(emitA, a, b)
+                                  for a, b in zip(callA, callB)))
         return s
 
     init = (zero, zero, zero, zero, zero, zero, zf,
@@ -138,9 +141,7 @@ def _scan_kernel(found_ref, fi_ref, av_ref, wt_ref,
 
     # end-of-sequence flush (kguts.cc:873-875)
     emitF, callF = flush_fields(s)
-    num_hits = s[0]
-    emitF = emitF & (num_hits >= min_hits)
-    write_call(W, emitF, callF)
+    write_call(W, emitF & (s[0] >= min_hits), callF)
 
 
 @functools.partial(
@@ -150,36 +151,42 @@ def _scan_kernel(found_ref, fi_ref, av_ref, wt_ref,
 def scan_score_pallas(found, h_fi, h_av, h_wt, min_hits=5,
                       min_weighted_hits=0, max_gap=200, order_constraint=0,
                       interpret=False):
-    """Pallas-backed equivalent of device_score._scan_score.
+    """Kernel-backed equivalent of device_score._scan_score_xla.
 
-    Inputs [B, W]; B must be a multiple of TB (pad with found=False rows).
-    Returns (emit [B, W+1] bool, fields list of [B, W+1]) like _scan_score.
+    Inputs [B, W] for any B (rows are padded to a multiple of TB with
+    found=False and sliced off again).  Returns (emit [B, W+1] bool,
+    fields list of [B, W+1]) like _scan_score_xla.
     """
     B, W = found.shape
-    if B % TB:
-        raise ValueError(f"batch {B} must be a multiple of {TB}")
-    grid = (B // TB,)
+    Bp = -(-B // TB) * TB
+    if Bp != B:
+        pad = ((0, Bp - B), (0, 0))
+        found, h_fi, h_av, h_wt = (jnp.pad(a, pad)
+                                   for a in (found, h_fi, h_av, h_wt))
 
-    in_spec = pl.BlockSpec((W, TB), lambda i: (0, i),
-                           memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((W + 1, TB), lambda i: (0, i),
-                            memory_space=pltpu.VMEM)
-    shape = jax.ShapeDtypeStruct((W + 1, B), jnp.int32)
-    shape_f = jax.ShapeDtypeStruct((W + 1, B), jnp.float32)
+    in_spec = pl.BlockSpec((TB, W), lambda i: (i, 0))
+    out_spec = pl.BlockSpec((TB, W + 1), lambda i: (i, 0))
+    # outputs vary over the same mesh axes as the inputs (shard_map)
+    vma = frozenset().union(*(jax.typeof(a).vma
+                              for a in (found, h_fi, h_av, h_wt)))
+
+    def out(dtype):
+        return jax.ShapeDtypeStruct((Bp, W + 1), dtype, vma=vma)
 
     kernel = functools.partial(
         _scan_kernel, W=W, min_hits=min_hits,
         min_weighted_hits=min_weighted_hits, max_gap=max_gap,
         order_constraint=order_constraint)
-
     emit, cs, ce, cc, cf, cw = pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(Bp // TB,),
         in_specs=[in_spec] * 4,
         out_specs=(out_spec,) * 6,
-        out_shape=(shape, shape, shape, shape, shape, shape_f),
+        out_shape=(out(jnp.int8), out(jnp.int32), out(jnp.int32),
+                   out(jnp.int32), out(jnp.int32), out(jnp.float32)),
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
-    )(found.T.astype(jnp.int32), h_fi.T, h_av.T, h_wt.T)
-
-    emit = emit.T != 0
-    return emit, [cs.T, ce.T, cc.T, cf.T, cw.T]
+        name="scan_score",
+    )(found.astype(jnp.int8), h_fi, h_av, h_wt)
+    return emit[:B] != 0, [cs[:B], ce[:B], cc[:B], cf[:B], cw[:B]]

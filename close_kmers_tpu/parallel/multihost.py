@@ -4,11 +4,11 @@ input sharding, and the pod-slice serving recipe.
 The reference is strictly single-node (SURVEY.md §2.8); its only
 parallel-IO pieces are parallel_read (per-thread byte ranges of one file,
 /root/reference/parallel_read.cc:44-94) and per-file TBB loops.  The
-TPU-native equivalents:
+equivalents here:
 
 * :func:`initialize` — bring up the jax.distributed runtime so a pod
-  slice's hosts form one mesh; table shards ride ICI, data parallelism
-  rides DCN.
+  slice's hosts form one mesh; table shards stay within a host's cards,
+  data parallelism spans hosts.
 * :func:`host_shard` / :func:`partition_file_ranges` — deterministic
   host-level work partitioning for input pipelines: each host parses its
   own slice of the input files (the parallel_read analogue at host
@@ -46,8 +46,7 @@ def initialize(coordinator_address: str | None = None,
 
 def pod_mesh(n_data: int | None = None, n_table: int | None = None):
     """Global ("data", "table") mesh over every device in the pod slice.
-    Defaults: table spans the devices of one host (shards ride ICI), data
-    spans hosts (DP over DCN)."""
+    Defaults: table spans the devices of one host, data spans hosts."""
     import jax
     from .sharding import make_mesh
 

@@ -3,7 +3,7 @@ mesh, probed with shard_map and merged with psum.
 
 The reference is single-node shared-memory: N threads share one mmap'd
 hash table (/root/reference/threadpool.cc:18-45, kmer_image.cc:41-107).
-The TPU-native design (SURVEY.md §2.8) treats the signature DB as *model
+The design (SURVEY.md §2.8) treats the signature DB as *model
 state*:
 
 * mesh axes ``("data", "table")`` — batch rows are data-parallel over
@@ -27,8 +27,8 @@ state*:
   owner-sorts its windows and ships them to their owning shard with one
   all_to_all per direction — one gather per window POD-WIDE instead of
   one per (window, shard).  Exchange buffers are built as contiguous
-  memcpys of the owner-sorted stream (v5e scatters measured 6-20x a
-  gather; see scripts/routed_exp.py --decomp) under a static per-pair
+  memcpys of the owner-sorted stream (scatters were the slower choice on
+  the first target; ROADMAP queue 3 #7) under a static per-pair
   capacity, with an exact all_gather+psum fallback for overflow and
   drop counting beyond that.  jax.lax.ragged_all_to_all would remove
   the capacity padding entirely but has no XLA:CPU lowering yet, which
@@ -48,7 +48,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..params import HI_CARD, LO_CARD
 from ..db.signature_db import SignatureDB
-from ..core.engine import DeviceDB, encode_windows, probe_windows
+from ..core.engine import (DeviceDB, device_memory_bytes, encode_windows,
+                           probe_windows)
 
 
 def make_mesh(n_data: int | None = None, n_table: int | None = None,
@@ -118,11 +119,12 @@ class ShardedDB:
         Hmax = max(1, int(np.max(h_bounds[1:] - h_bounds[:-1])))
 
         WIDE = max(1, int(db.max_bucket))
+        mem = device_memory_bytes(mesh.devices.flat[0])
         if wide_payload is None:
             wide_payload = (
                 n > 0 and 0 < db.max_bucket <= DeviceDB.WIDE_BUCKET_MAX
-                and S * Hmax * (1 + 5 * WIDE) * 4
-                <= S * DeviceDB.WIDE_PAYLOAD_MAX_BYTES)
+                and Hmax * (1 + 5 * WIDE) * 4
+                <= DeviceDB.WIDE_PAYLOAD_SHARE * mem)
 
         bp = np.zeros((S, HI_CARD, 2), dtype=np.int32)
         lo = np.full((S, m + 1), -1, dtype=np.int32)
@@ -171,7 +173,7 @@ class ShardedDB:
         sub_w = 0
         if pw is None and n:
             sub_h, sub_b, sub_w = cls._build_sub(db, S, h_bounds, row_base,
-                                                 Hmax)
+                                                 Hmax, mem)
 
         shard = NamedSharding(mesh, P("table", None))
         put = lambda a: jax.device_put(jnp.asarray(a), shard)
@@ -185,7 +187,7 @@ class ShardedDB:
                    sub_w=sub_w, h_bounds=h_bounds)
 
     @staticmethod
-    def _build_sub(db: SignatureDB, S, h_bounds, row_base, Hmax):
+    def _build_sub(db: SignatureDB, S, h_bounds, row_base, Hmax, mem):
         """Per-shard sub-bucket layout (engine.DeviceDB.from_db's deep
         path with local hi and local block starts), padded to uniform
         [S, ...] shapes.  Returns (header [S, Hmax, SUB],
@@ -210,7 +212,7 @@ class ShardedDB:
             return None, None, 0
         from ..core.engine import _lane_pad
         row_w = _lane_pad(1 + 5 * max_sub)
-        if S * (nb_max + 1) * row_w * 4 > S * DeviceDB.SUB_MAX_BYTES:
+        if (nb_max + 1) * row_w * 4 > DeviceDB.SUB_SHARE * mem:
             return None, None, 0
         header = np.full((S, Hmax, SUB), nb_max, dtype=np.int32)
         blocks = np.zeros((S, nb_max + 1, row_w), dtype=np.int32)
@@ -375,11 +377,10 @@ def _routed_probe_core(bp, lo_t, payload, hi_base, pw, shh, sb, bounds,
     vf = valid.reshape(-1)
 
     # owning table shard of each window; S = invalid (never routed).
-    # Broadcast compare-sum instead of jnp.searchsorted: XLA's
-    # searchsorted leaves its vectorized small-table path past ~64
-    # bounds and the owner stage alone jumped 1 -> 69.6 ms per 1.2M
-    # windows at S=64 (routed_exp --decomp, round 5); S-1 fused
-    # compares are ~1 ms at any S this path serves.  bounds[0] is the
+    # Broadcast compare-sum instead of jnp.searchsorted: S-1 fused
+    # compares per window stay cheap at any S this path serves, where
+    # searchsorted fell off its vectorized small-table path past ~64
+    # bounds on the first target.  bounds[0] is the
     # range floor (<= every valid hi), so the j=0 term is constant and
     # dropped.
     owner = (hif[:, None] >= bounds[None, 1:S].astype(hif.dtype)).sum(
@@ -394,9 +395,8 @@ def _routed_probe_core(bp, lo_t, payload, hi_base, pw, shh, sb, bounds,
     fits = (s_owner < S) & (rank < cap)
     # The sorted stream is CONTIGUOUS per destination, so the dense
     # [S, cap] exchange buffers are S static-count memcpys (dynamic
-    # slices), not scatters/gathers: routed_exp --decomp measured the
-    # scatter at 43 ms and the slot-indexed gather at 75 ms per 2.49M
-    # windows on v5e, while contiguous copies are HBM-stream-rate.
+    # slices), not scatters/gathers: contiguous copies run at memory
+    # stream rate.
     # Rows past a destination's count carry the NEXT destination's
     # windows — masked to invalid (-1 hi; the probe re-masks lo itself).
     sorted2 = jnp.stack([s_hi, s_lo], axis=-1)
@@ -475,9 +475,9 @@ def _routed_probe_core(bp, lo_t, payload, hi_base, pw, shh, sb, bounds,
                        mine[jnp.minimum(ov_slot, ov_cap - 1)], 0)
     res_sorted = jnp.where(ovf[:, None], ov_res, res_sorted)
 
-    # unsort via the inverse permutation + row gather: the equivalent
-    # scatter measured 105 ms/2.49M windows on v5e vs ~21 ms for
-    # argsort+gather (scripts/routed_exp.py --decomp)
+    # unsort via the inverse permutation + row gather instead of the
+    # equivalent scatter (the faster of the two on the first target; not
+    # re-measured on the card)
     inv = jnp.argsort(s_pos)
     out = row_gather(res_sorted, inv)
     fi1 = out[:, 0].reshape(shp)
@@ -730,8 +730,8 @@ class ShardedEngine:
                       rows_only: bool = False):
         """Same contract as FastAnnotator.probe_compact.  The plane flags
         exist for interface parity — the sharded step downloads full
-        grids regardless (its wire is ICI/PCIe, not the dev relay), so
-        they only shape the returned dict (zeros / omitted "code")."""
+        grids regardless, so they only shape the returned dict (zeros /
+        omitted "code")."""
         B = offsets.shape[0]
         Bp = self.pad_to_data_axis(B)
         if Bp != B:

@@ -2,7 +2,7 @@
 
 Semantics-parity constants with the reference signature-kmer engine
 (see /root/reference/kmer_params.h:5-23 and kguts.cc:236-242 for the
-engine defaults).  The TPU build fixes K=8 (the only K the reference's
+engine defaults).  This build fixes K=8 (the only K the reference's
 modern path uses).
 """
 
@@ -30,12 +30,11 @@ HIT_BUFFER_CAP = MAX_HITS_PER_SEQ - 2
 # reported by format_otu_stats (kguts.cc:966).
 OI_BUFSZ = 5
 
-# Split point for the two-level TPU index: a 8-mer code is stored as
+# Split point for the two-level device index: a 8-mer code is stored as
 # (hi, lo) = (code // 20^LO_DIGITS, code % 20^LO_DIGITS); both fit int32
-# so the TPU probe path never needs 64-bit ints.  HI_DIGITS=5 gives 3.2M
-# buckets (avg bucket ~6 entries at 20M kmers), shrinking the in-bucket
-# binary search to ~5 gather steps — gather OPS dominate probe time on
-# TPU, so fewer/wider ops win.
+# so the device probe path never needs 64-bit ints.  HI_DIGITS=5 gives
+# 3.2M buckets (avg bucket ~6 entries at 20M kmers), shrinking the
+# in-bucket binary search to ~5 dependent gather steps.
 HI_DIGITS = 5
 LO_DIGITS = KMER_SIZE - HI_DIGITS
 HI_CARD = 20 ** HI_DIGITS  # 3,200,000

@@ -112,7 +112,7 @@ class ServerContext:
 
     def checkpoint(self) -> str:
         """Persist the mutable server state (the mapping universes) to a
-        checkpoint file — the TPU-native stand-in for the reference's
+        checkpoint file — the stand-in for the reference's
         whole-process BLCR checkpoint (krequest2.cc:361-408): the
         signature DB is already a restartable on-disk image, so only the
         dynamically-accumulated mappings need saving."""

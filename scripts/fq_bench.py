@@ -56,10 +56,8 @@ def main():
     from close_kmers_tpu.ops.translate import batch_orf_arrays
     from close_kmers_tpu.params import EngineParams
 
-    cache_dir = os.path.join(bench.CACHE, "jax")
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from close_kmers_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from close_kmers_tpu.db.family_db import FamilyData
     from close_kmers_tpu.db.signature_db import SignatureDB

@@ -24,10 +24,8 @@ import bench  # noqa: E402
 def main():
     import jax
 
-    cache_dir = os.path.join(bench.CACHE, "jax")
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from close_kmers_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from dna_bench import synth_genome  # noqa: F401
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(

@@ -138,8 +138,8 @@ def run_case(pid, mesh, mesh_local, db, rng, label: str) -> int:
     t_probe = time.time() - t0
 
     # single-chip probe reference, computed locally
-    from close_kmers_tpu.core.engine import TpuEngine
-    rfound, rfi, roi, rav, rwt = TpuEngine(db).probe_padded(offsets, lengths)
+    from close_kmers_tpu.core.engine import DeviceEngine
+    rfound, rfi, roi, rav, rwt = DeviceEngine(db).probe_padded(offsets, lengths)
 
     n_checked = 0
     for arr, exp in ((found, rfound.astype(np.int32)),
@@ -253,7 +253,7 @@ def main() -> int:
         midsize = sys.argv[sys.argv.index("--midsize") + 1]
 
     if midsize is not None:
-        # VERDICT r3 #8: one cross-process case over a REAL mid-size DB
+        # One cross-process case over a REAL mid-size DB
         # slice (>= 10M keys from the 208M scale build when present,
         # else a synthetic fallback), with deliberately uneven hi-space
         # occupancy (two disjoint key ranges), instead of the 30k-key toy.

@@ -5,7 +5,7 @@ tests/test_golden.py CONVS, and writes the raw response bytes to
 tests/golden/<name>.resp.  Run ONLY when a semantic change is intended —
 the snapshots are the byte-level behavior lock.
 
-Usage: CLOSE_KMERS_JAX_PLATFORM=cpu python scripts/record_golden.py [name ...]
+Usage: JAX_PLATFORMS=cpu python scripts/record_golden.py [name ...]
 """
 
 from __future__ import annotations

@@ -15,7 +15,7 @@
 // Emits, per query protein on stdin, either the best_match_t stream
 // format (family_mapper.h:70-75) prefixed by the query id, or with
 // --all the find_all_matches report (family_mapper.cc:207-285), so
-// scripts/ref_parity.py can diff family scoring against the TPU
+// scripts/ref_parity.py can diff family scoring against the JAX
 // pipeline's core.family implementation.
 //
 // Usage: family_harness [--all] [--ambiguous] [--threshold N]

@@ -6,7 +6,7 @@
 // function.index + otu.index).  Emits, per input sequence, the exact
 // grammar of the reference's own formatters (kguts.cc:939-973) plus a
 // BEST-CALL line from find_best_call (kguts.cc:1008-1199), so
-// scripts/ref_parity.py can diff the byte stream against the TPU
+// scripts/ref_parity.py can diff the byte stream against the JAX
 // pipeline / oracle.
 //
 // Usage: ref_harness [--dna] [--no-hits] [--p:min_hits=3 ...] <data-dir>

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 
 from close_kmers_tpu.core import family as F
-from close_kmers_tpu.core.engine import FastAnnotator, TpuEngine
+from close_kmers_tpu.core.engine import FastAnnotator, DeviceEngine
 from close_kmers_tpu.core.device_family import DeviceFamilyScorer
 from close_kmers_tpu.db.family_db import KmerFamilyMapping
 
@@ -26,7 +26,7 @@ def setup():
 def test_device_rollup_matches_host(setup):
     db, seqs, mapping = setup
     dfs = DeviceFamilyScorer(db, mapping)
-    eng = TpuEngine(db)
+    eng = DeviceEngine(db)
     fa = FastAnnotator(db)
     offsets, lengths = fa.pad_batch(seqs)
     n_per_seq, fam, counts, weights, first = dfs.rollup(offsets, lengths)

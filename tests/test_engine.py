@@ -7,7 +7,7 @@ import pytest
 from close_kmers_tpu.params import EngineParams, K
 from close_kmers_tpu.ops import encoder as E
 from close_kmers_tpu.core import oracle as O
-from close_kmers_tpu.core.engine import TpuEngine, replay_hits
+from close_kmers_tpu.core.engine import DeviceEngine, replay_hits
 from close_kmers_tpu.db.signature_db import SignatureDB
 
 
@@ -62,7 +62,7 @@ def setup():
     rng = np.random.default_rng(42)
     db = random_db(rng)
     seqs = random_seqs(rng, db)
-    eng = TpuEngine(db)
+    eng = DeviceEngine(db)
     return db, seqs, eng
 
 
@@ -132,9 +132,9 @@ def test_probe_batch_padding_invariance(setup):
 
 
 def test_probe_count_pad_rule():
-    # Flat gather counts are padded to the next length ≡ 8 (mod 16) —
-    # the v5e gather-cliff workaround (PERF.md).  Padding must be
-    # monotone, bounded, and idempotent.
+    # Flat gather counts are padded to the next length ≡ 8 (mod 16)
+    # (engine._probe_count_pad).  Padding must be monotone, bounded,
+    # and idempotent.
     from close_kmers_tpu.core.engine import _probe_count_pad
     for n in list(range(1, 70)) + [8192 * 304, 8192 * 304 + 1, 2_490_000]:
         m = _probe_count_pad(n)
@@ -157,7 +157,7 @@ def test_probe_flat_pad_parity(setup):
 
 def test_empty_db():
     db = SignatureDB.from_entries([])
-    eng = TpuEngine(db)
+    eng = DeviceEngine(db)
     res = eng.process_batch([("a", "MKLVINGKTACDEF")])
     assert res[0][0] == []
 
@@ -313,8 +313,8 @@ def test_deep_bucket_db_picks_sub_not_fused():
     """A PATRIC-density DB (deep buckets) must auto-pick the
     depth-insensitive sub-bucket tier; the fused packed-row tier's
     bucket-depth gate (FUSED_BUCKET_MAX) keeps its byte-bound KB rows
-    away from deep DBs (caught live by scripts/sub_serve_demo.py at the
-    971M shard: 17.8 KB fused rows at max bucket 2219)."""
+    away from deep DBs (a 2219-deep bucket would make 17.8 KB fused
+    rows)."""
     from close_kmers_tpu.core.engine import DeviceDB
     from close_kmers_tpu.db.signature_db import SignatureDB
     from close_kmers_tpu.params import LO_CARD

@@ -7,7 +7,7 @@ import pytest
 from close_kmers_tpu.params import EngineParams, K
 from close_kmers_tpu.ops import encoder as E
 from close_kmers_tpu.core import oracle as O, family as F
-from close_kmers_tpu.core.engine import TpuEngine, replay_hits
+from close_kmers_tpu.core.engine import DeviceEngine, replay_hits
 from close_kmers_tpu.db.signature_db import SignatureDB
 from close_kmers_tpu.db.family_db import KmerFamilyMapping, FamilyReps
 
@@ -52,7 +52,7 @@ def universe(tmp_path_factory):
             seen.setdefault(p[i:i + K], (p[i:i + K], 10, fi, 1.0, -1))
     db = SignatureDB.from_entries(seen.values(), functions=funcs)
 
-    eng = TpuEngine(db)
+    eng = DeviceEngine(db)
     mapping = KmerFamilyMapping()
     mapping.load_genus_map(str(genus_file))
     mapping.load_families(str(fam_file))

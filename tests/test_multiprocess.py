@@ -1,4 +1,4 @@
-"""Real multi-process jax.distributed execution (VERDICT round-1 gap).
+"""Real multi-process jax.distributed execution.
 
 Spawns 2 coordinator+worker processes on localhost (CPU backend, 4
 virtual devices each -> an 8-device global ("data", "table") mesh), runs

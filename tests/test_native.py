@@ -6,7 +6,7 @@ import pytest
 
 from close_kmers_tpu.params import EngineParams
 from close_kmers_tpu.core import oracle as O, family as F
-from close_kmers_tpu.core.engine import FastAnnotator, TpuEngine, finish_best_call
+from close_kmers_tpu.core.engine import FastAnnotator, DeviceEngine, finish_best_call
 from close_kmers_tpu.native import api as native
 from close_kmers_tpu.db.family_db import KmerFamilyMapping
 
@@ -77,7 +77,7 @@ def test_native_best_call_matches_oracle(corpus):
 def test_native_family_scores_match_python(corpus):
     db, seqs = corpus
     fa = FastAnnotator(db)
-    eng = TpuEngine(db)
+    eng = DeviceEngine(db)
     # Build a family mapping: each function index is its own family.
     mapping = KmerFamilyMapping()
     rng = np.random.default_rng(5)

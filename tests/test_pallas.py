@@ -1,11 +1,14 @@
-"""Pallas scan-scoring kernel parity vs the XLA scan (interpret mode on
-the CPU mesh; the same code runs compiled on TPU)."""
+"""Scoring-scan kernel (ops/pallas_scan.py) parity vs the XLA scan, in
+interpret mode on the CPU; the same kernel runs compiled on CUDA."""
+
+import functools
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from close_kmers_tpu.core.device_score import _scan_score
+from close_kmers_tpu.core.device_score import _scan_score, _scan_score_xla
 from close_kmers_tpu.ops.pallas_scan import TB, scan_score_pallas
 
 
@@ -18,6 +21,19 @@ def random_streams(rng, B, W, n_funcs=5, p_hit=0.3):
             jnp.asarray(wt))
 
 
+def assert_same_calls(xla_out, kernel_out):
+    emit_x, fields_x = xla_out
+    emit_p, fields_p = kernel_out
+    assert np.asarray(emit_p).shape == np.asarray(emit_x).shape
+    assert np.array_equal(np.asarray(emit_x), np.asarray(emit_p))
+    mask = np.asarray(emit_x)
+    for fx, fp in zip(fields_x, fields_p):
+        fx, fp = np.asarray(fx), np.asarray(fp)
+        assert fx.dtype == fp.dtype
+        # only emitted slots are meaningful
+        assert np.array_equal(fx[mask], fp[mask])
+
+
 @pytest.mark.parametrize("params", [
     dict(min_hits=5, min_weighted_hits=0, max_gap=200, order_constraint=0),
     dict(min_hits=2, min_weighted_hits=0, max_gap=10, order_constraint=0),
@@ -26,91 +42,58 @@ def random_streams(rng, B, W, n_funcs=5, p_hit=0.3):
 ])
 def test_pallas_scan_matches_xla_scan(params):
     rng = np.random.default_rng(8)
-    B, W = TB, 96
-    found, fi, av, wt = random_streams(rng, B, W)
-    emit_x, fields_x = _scan_score(found, fi, av, wt, **params)
-    emit_p, fields_p = scan_score_pallas(found, fi, av, wt, interpret=True,
-                                         **params)
-    assert np.array_equal(np.asarray(emit_x), np.asarray(emit_p))
-    for fx, fp in zip(fields_x, fields_p):
-        fx, fp = np.asarray(fx), np.asarray(fp)
-        mask = np.asarray(emit_x)
-        # only emitted slots are meaningful
-        assert np.array_equal(fx[mask], fp[mask])
+    found, fi, av, wt = random_streams(rng, 4 * TB, 96)
+    assert_same_calls(
+        _scan_score_xla(found, fi, av, wt, **params),
+        scan_score_pallas(found, fi, av, wt, interpret=True, **params))
 
 
 def test_pallas_scan_dense_runs():
     rng = np.random.default_rng(9)
-    B, W = TB, 64
+    B, W = 2 * TB, 64
     # dense same-function runs: every position hits, few functions
     found = jnp.ones((B, W), bool)
     fi = jnp.asarray(rng.integers(0, 2, size=(B, W)).astype(np.int32))
     av = jnp.zeros((B, W), jnp.int32)
     wt = jnp.ones((B, W), jnp.float32)
-    emit_x, fields_x = _scan_score(found, fi, av, wt, 3, 0, 200, 0)
-    emit_p, fields_p = scan_score_pallas(found, fi, av, wt, min_hits=3,
-                                         interpret=True)
-    assert np.array_equal(np.asarray(emit_x), np.asarray(emit_p))
-    mask = np.asarray(emit_x)
-    for fx, fp in zip(fields_x, fields_p):
-        assert np.array_equal(np.asarray(fx)[mask], np.asarray(fp)[mask])
+    assert_same_calls(
+        _scan_score_xla(found, fi, av, wt, 3, 0, 200, 0),
+        scan_score_pallas(found, fi, av, wt, min_hits=3, interpret=True))
 
 
-def test_pallas_rejects_bad_batch():
-    z = jnp.zeros((TB + 1, 16))
-    with pytest.raises(ValueError):
-        scan_score_pallas(z.astype(bool), z.astype(jnp.int32),
-                          z.astype(jnp.int32), z.astype(jnp.float32),
-                          interpret=True)
+@pytest.mark.parametrize("B", [1, TB - 3, 3 * TB + 5])
+def test_pallas_scan_pads_ragged_batch(B):
+    """Batches that are not a multiple of the tile are padded with
+    found=False rows inside the wrapper and sliced back."""
+    rng = np.random.default_rng(B)
+    found, fi, av, wt = random_streams(rng, B, 40, p_hit=0.6)
+    assert_same_calls(
+        _scan_score_xla(found, fi, av, wt, 2, 0, 10, 0),
+        scan_score_pallas(found, fi, av, wt, min_hits=2, max_gap=10,
+                          interpret=True))
 
 
-def test_pallas_select_matches_xla_probe(monkeypatch):
-    """The Pallas payload-wide selection pass (CLOSE_KMERS_PALLAS_SELECT=1)
-    must reproduce probe_windows' XLA masked-sum selection exactly."""
-    from close_kmers_tpu.core import engine as E
-    from close_kmers_tpu.db.signature_db import SignatureDB
-
-    rng = np.random.default_rng(3)
-    n = 4000
-    keys = np.unique(rng.integers(0, 20**8, size=n, dtype=np.int64))
-    db = SignatureDB(
-        keys,
-        rng.integers(0, 50, size=len(keys)).astype(np.int32),
-        rng.integers(-1, 8, size=len(keys)).astype(np.int32),
-        rng.integers(0, 300, size=len(keys)).astype(np.int32),
-        rng.uniform(0.1, 3.0, size=len(keys)).astype(np.float32),
-    )
-    ddb = E.DeviceDB.from_db(db, wide=True, wide_payload=True)
-    assert ddb.payload_wide is not None and ddb.wide_w > 0
-
-    B, L = 16, 64
-    offsets = rng.integers(0, 20, size=(B, L)).astype(np.uint8)
-    lengths = np.full(B, L, dtype=np.int32)
-    # plant some guaranteed hits: spell a DB kmer into each row
-    from close_kmers_tpu.ops.encoder import decode_kmer, seq_to_offsets
-    for b in range(B):
-        km = decode_kmer(int(keys[rng.integers(0, len(keys))]))
-        offsets[b, 4:12] = seq_to_offsets(km)
-    hi, lo, valid = E.encode_windows(jnp.asarray(offsets),
-                                     jnp.asarray(lengths))
-
-    monkeypatch.delenv("CLOSE_KMERS_PALLAS_SELECT", raising=False)
-    base = [np.asarray(x) for x in E.probe_windows(ddb, hi, lo, valid)]
-    assert base[0].any()
-    monkeypatch.setenv("CLOSE_KMERS_PALLAS_SELECT", "1")
-    palls = [np.asarray(x) for x in E.probe_windows(ddb, hi, lo, valid)]
-    for k, (a, b) in enumerate(zip(base, palls)):
-        assert np.array_equal(a, b), k
-
-
-def test_pallas_gather_parity_interpret():
-    """ops/pallas_gather (the round-5 closing Pallas shot) stays
-    correct: interpret-mode emulation vs numpy on the CPU backend."""
-    import numpy as np
-    from close_kmers_tpu.ops.pallas_gather import pallas_row_gather, CHUNK
-
+def _lowered_text(platform):
     rng = np.random.default_rng(0)
-    table = rng.integers(0, 100, size=(500, 128), dtype=np.int32)
-    idx = rng.integers(0, 500, size=2 * CHUNK).astype(np.int32)
-    got = np.asarray(pallas_row_gather(table, idx, interpret=True))
-    assert (got == table[idx]).all()
+    args = random_streams(rng, 2 * TB, 24)
+    f = jax.jit(functools.partial(_scan_score, min_hits=5,
+                                  min_weighted_hits=0, max_gap=200,
+                                  order_constraint=0))
+    return f.trace(*args).lower(lowering_platforms=(platform,)).as_text()
+
+
+@pytest.mark.parametrize("platform,has_kernel", [("cuda", True),
+                                                  ("cpu", False)])
+def test_scan_choice_follows_platform(platform, has_kernel):
+    """CUDA programs carry the Triton kernel (no interpret mode); every
+    other platform lowers the lax.scan reference."""
+    text = _lowered_text(platform)
+    assert ("__gpu$xla.gpu.triton" in text) == has_kernel
+    assert ("while" in text) != has_kernel
+
+
+def test_dispatch_matches_reference_on_cpu():
+    rng = np.random.default_rng(4)
+    args = random_streams(rng, 3 * TB, 50)
+    assert_same_calls(_scan_score_xla(*args, 2, 0, 20, 0),
+                      _scan_score(*args, 2, 0, 20, 0))
